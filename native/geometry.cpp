@@ -1,6 +1,6 @@
 // Native host-side geometry runtime: Morton coding + LBVH build.
 //
-// The TPU framework's device path is JAX/XLA/Pallas; the HOST runtime work
+// The framework's device path is JAX/XLA; the HOST runtime work
 // (scene build / acceleration-structure construction, the analog of the
 // reference's C# MeshSplitter preprocessing) is implemented here in C++ for
 // production-scale scenes (the ~70k-triangle BASELINE config builds ~100x

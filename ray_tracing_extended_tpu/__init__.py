@@ -1,12 +1,12 @@
-"""ray_tracing_extended_tpu: a TPU-native progressive Monte-Carlo path tracer.
+"""ray_tracing_extended_tpu: a progressive Monte-Carlo path tracer in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of the Unity/HLSL
+A ground-up JAX/XLA re-design of the capabilities of the Unity/HLSL
 reference renderer MaxLayar/Ray-Tracing-Extended (see SURVEY.md): per-pixel
 PCG RNG, thin-lens camera with defocus/anti-alias jitter, sphere + triangle
 scenes with diffuse/specular/emissive materials (checker and invisible-light
 flags, plus a dielectric extension), procedural sky/sun environment,
 Russian-roulette path termination, and progressive multi-frame accumulation -
-all on device, with image blocks sharded across TPU chips.
+all on device, with image blocks sharded across GPUs.
 
 Quick start::
 

@@ -18,8 +18,8 @@ Traversal (device): vectorized per-ray stack in a ``lax.while_loop``. Every
 iteration pops one node per lane (lanes with empty stacks idle under masks),
 slab-tests it against the ray and current best-t, tests ``leaf_width``
 primitives when it is a leaf, and pushes surviving children near-child-first.
-All memory access is row gathers into the flat node/primitive arrays - the
-TPU-compatible expression of an inherently divergent algorithm. The pruned
+All memory access is row gathers into the flat node/primitive arrays - a
+fixed-shape, masked expression of an inherently divergent algorithm. The pruned
 slab test requires ``t_far >= 0 and t_near <= min(t_far, best_t)``, which is
 exact for closest-hit: it can only skip nodes that cannot contain a closer
 valid (t >= 0) hit.

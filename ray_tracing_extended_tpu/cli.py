@@ -6,8 +6,8 @@
         --width 1920 --height 1080 --frames 64 \\
         --checkpoint chess.npz --resume
     python -m ray_tracing_extended_tpu.cli benchmark
-    python -m ray_tracing_extended_tpu.cli compare --scene preset:cornell \\
-        --a mega --b bruteforce
+    python -m ray_tracing_extended_tpu.cli compare --scene preset:mesh \\
+        --a bvh --b bruteforce
 
 Scene specs: ``preset:{three_sphere|rtiow|cornell|mesh}``, a ``.unity``
 scene (the reference's own files load directly), a ``.json`` scene
@@ -20,6 +20,8 @@ import argparse
 import dataclasses
 import sys
 
+from .utils.config import INTERSECTORS
+
 
 def _load_scene(spec: str, args):
     overrides = {}
@@ -31,10 +33,6 @@ def _load_scene(spec: str, args):
         overrides["intersector"] = args.intersector
     if getattr(args, "hdr", False):
         overrides["clamp_accumulate"] = False
-    if getattr(args, "adaptive_spp", False):
-        overrides["adaptive_spp"] = True
-    if getattr(args, "fast_scatter", False):
-        overrides["fast_scatter"] = True
 
     if spec.startswith("preset:"):
         from .models import presets
@@ -93,7 +91,7 @@ def _parse_mesh(spec):
         raise SystemExit(
             f"--mesh {spec} needs {need} devices, only {have} visible "
             "(hint: XLA_FLAGS=--xla_force_host_platform_device_count=N "
-            "JAX_PLATFORMS=cpu simulates an N-chip mesh)"
+            "JAX_PLATFORMS=cpu simulates an N-device mesh)"
         )
     return make_mesh(jax.devices()[:need], spp_parallel=spp_n)
 
@@ -173,25 +171,23 @@ def cmd_render(args):
 
 
 def cmd_benchmark(args):
-    import bench  # repo-root canonical benchmark
+    import bench  # repo-root benchmark
 
-    bench.main()
-    return 0
+    return bench.main()
 
 
 def cmd_compare(args):
     """Render the same frame with two intersectors and report agreement -
     the MC-statistical pixel comparison of SURVEY.md section 4.
 
-    Thresholds are calibrated to the measured cross-path noise (round 3,
-    TPU v5e): the paths share bit-exact integer RNG but differ by <= 1
-    ulp in RandomValue rounding, which decorrelates knife-edge paths -
-    ~30% of pixels on a 484-sphere scene - while both remain estimators
-    of the same integral (median rel 4.9e-4, means within 1.5%). The
-    verdict therefore keys on the MEDIAN pixel and the image mean, which
-    move far outside these bands on any real defect (wrong material,
-    broken cull, bad fetch), not on a per-pixel tight fraction that
-    scene complexity alone can push past any fixed cutoff."""
+    The paths share bit-exact integer RNG but round their geometry math
+    differently, which decorrelates knife-edge paths - a large share of
+    pixels on a scene of hundreds of spheres - while both remain
+    estimators of the same integral. The verdict therefore keys on the
+    MEDIAN pixel and the image mean, which move far outside these bands
+    on any real defect (wrong material, broken traversal), not on a
+    per-pixel tight fraction that scene complexity alone can push past
+    any fixed cutoff."""
     import numpy as np
     import jax.numpy as jnp
 
@@ -226,6 +222,9 @@ def cmd_compare(args):
 
 
 def main(argv=None):
+    from .utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     p = argparse.ArgumentParser(prog="ray_tracing_extended_tpu")
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -235,19 +234,7 @@ def main(argv=None):
         sp.add_argument("--height", type=int)
         sp.add_argument("--spp", type=int)
         sp.add_argument("--max-bounce", dest="max_bounce", type=int)
-        sp.add_argument(
-            "--intersector",
-            choices=["auto", "bruteforce", "bvh", "mega"],
-        )
-        sp.add_argument(
-            "--adaptive-spp", dest="adaptive_spp", action="store_true",
-            help="sample refill: pixels whose tile-mates are still "
-                 "tracing get extra samples (>= spp each, per-pixel "
-                 "mean; ~1.5x sampling throughput on the megakernel)")
-        sp.add_argument(
-            "--fast-scatter", dest="fast_scatter", action="store_true",
-            help="2-draw unit-vector sampler (distribution-identical, "
-                 "breaks draw-for-draw reference parity)")
+        sp.add_argument("--intersector", choices=INTERSECTORS)
         sp.add_argument("--hdr", action="store_true",
                         help="unclamped accumulation (reference clamps)")
 
@@ -259,10 +246,9 @@ def main(argv=None):
     )
     r.add_argument(
         "--batch", type=int, default=1, metavar="K",
-        help="frames fused per kernel launch (static camera; each "
-        "launch's per-pixel cost telemetry drives the next launch's "
-        "cost-guided lane pairing - the fast exact-spp path, ~45%% "
-        "faster than per-frame at K=32 on the RTIOW headline)",
+        help="frames fused per dispatch (static camera; the same "
+        "estimator and fold as per-frame rendering, one metrics line "
+        "per chunk)",
     )
     r.add_argument(
         "--flythrough", type=int, default=0, metavar="N",
@@ -275,8 +261,8 @@ def main(argv=None):
              "ghosting-by-design averaging)")
     r.add_argument(
         "--mesh", default=None, metavar="SPPxTILES",
-        help="multi-chip mesh, e.g. 1x4 (4 chips shard image bands) or "
-             "2x4 (8 chips: 2 frame seeds x 4 bands)")
+        help="multi-device mesh, e.g. 1x4 (4 devices shard the pixel "
+             "blocks) or 2x4 (8 devices: 2 frame seeds x 4 tiles)")
     r.add_argument("--out", default=None)
     r.add_argument("--tone", default="none",
                    choices=["none", "reinhard", "aces"])
@@ -295,8 +281,8 @@ def main(argv=None):
 
     c = sub.add_parser("compare", help="cross-intersector agreement check")
     add_scene_args(c)
-    c.add_argument("--a", default="mega")
-    c.add_argument("--b", default="bruteforce")
+    c.add_argument("--a", default="auto", choices=INTERSECTORS)
+    c.add_argument("--b", default="bruteforce", choices=INTERSECTORS)
     c.add_argument("--frame", type=int, default=0)
     c.set_defaults(fn=cmd_compare)
 

@@ -24,6 +24,11 @@ def accumulate(prev, cur, frame, clamp: bool = True):
     ``prev``. ``frame`` counts from 0; at frame 0 the weight is 1 so any
     ``prev`` content is discarded (mirrors RayTracingManager.cs:74-81 where
     the first accumulate sees an undefined prev texture)."""
-    weight = 1.0 / (jnp.asarray(frame, jnp.float32) + 1.0)
-    out = prev * (1.0 - weight) + cur * weight
+    n = jnp.asarray(frame, jnp.float32) + 1.0
+    # prev + (cur/n - prev/n) is prev*(1 - w) + cur*w with w = 1/n, written
+    # with no product feeding an add. Fused into a larger program (K frames
+    # per dispatch, a sharded step, the render that made ``cur``), such a
+    # pair may be contracted into one FMA, which rounds once and moves the
+    # last bit; divisions and adds give the same bits in every program.
+    out = jnp.where(n == 1.0, cur, prev + (cur / n - prev / n))
     return vm.saturate(out) if clamp else out

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 from ..utils.pytree import pytree_dataclass
 from . import rng as rng_ops
 from . import vecmath as vm
+from .intersect import MATMUL_PRECISION
 
 
 @pytree_dataclass
@@ -129,7 +130,9 @@ def focus_points(cam: Camera, pix_x, pix_y, width: int, height: int):
         ],
         axis=-1,
     )
-    return cam.position[None, :] + local @ cam.rotation.T
+    return cam.position[None, :] + jnp.matmul(
+        local, cam.rotation.T, precision=MATMUL_PRECISION
+    )
 
 
 def generate_rays(state, cam: Camera, focus_point, width: int):

@@ -10,7 +10,7 @@ Reproduces GetEnvironmentLight (RayTracing.shader:238-251) exactly:
 
 including the quirk that the sun term only lights directions with
 ``dir.y >= 0`` (the ``groundToSkyT >= 1`` gate, SURVEY.md section 5 quirk 4).
-Pure element-wise VPU math; fuses into the trace loop.
+Pure element-wise math; XLA fuses it into the trace loop.
 """
 
 from __future__ import annotations

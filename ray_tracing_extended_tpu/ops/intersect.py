@@ -1,11 +1,11 @@
-"""Ray-primitive intersection, formulated for the TPU MXU.
+"""Ray-primitive intersection as dense (rays x primitives) contractions.
 
 The reference's intersector is a per-thread linear scan over all spheres and
 all chunk triangles (CalculateRayCollision, RayTracing.shader:256-297) with
-scalar quadratic / Moller-Trumbore tests (RayTracing.shader:120-174). On TPU
-the idiomatic formulation is dense (rays x primitives) batches where the
-dot-product-heavy part of every test is a contraction that runs on the MXU
-(systolic array) and only a short element-wise tail runs on the VPU:
+scalar quadratic / Moller-Trumbore tests (RayTracing.shader:120-174). Here
+the formulation is dense (rays x primitives) batches where the
+dot-product-heavy part of every test is a K=3 contraction (``dot_general``)
+followed by a short element-wise tail that XLA fuses:
 
 * ray-sphere: with ``oc = o - c`` and unit ``d``,
   ``dot(oc, d) = dot(o, d) - o @ C^T-row`` and
@@ -47,15 +47,15 @@ INF = jnp.float32(jnp.inf)
 # Backface-cull / degeneracy threshold (RayTracing.shader:169).
 DET_EPS = jnp.float32(1e-6)
 
-# Contraction precision for the geometry matmuls. f32-exact by default
-# (HIGHEST = 6-pass bf16 on TPU, bit-accurate to f32); the benchmark path may
-# lower this to HIGH (3-pass bf16) which is accurate to ~0.5 ulp for these
-# magnitudes.
+# Contraction precision for every float32 product in the renderer. HIGHEST
+# keeps full f32: on a GPU the default precision may round the operands to
+# TF32 (10 mantissa bits, ~3 decimal digits), which would move hit distances
+# and camera rays at the fourth digit.
 MATMUL_PRECISION = lax.Precision.HIGHEST
 
 
 def _dots(a, b_t):
-    """(B, 3) x (T, 3) -> (B, T) row-pair dot products on the MXU."""
+    """(B, 3) x (T, 3) -> (B, T) row-pair dot products."""
     return lax.dot_general(
         a,
         b_t,

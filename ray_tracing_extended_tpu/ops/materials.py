@@ -20,7 +20,7 @@ BASELINE.json Cornell-box/RTIOW configs; see SURVEY.md section 5 quirk 6):
 classic RTIOW glass. Reuses the specular-lottery draw as the Fresnel
 (Schlick) reflect-vs-refract choice so every scattering lane consumes the
 same number of randoms per bounce (keeps the per-pixel PCG streams in
-lockstep under the masked TPU loop). Because refracted rays continue *into*
+lockstep under the masked bounce loop). Because refracted rays continue *into*
 the surface, the origin is nudged by ``dir * 1e-4`` (the same trick the
 reference uses for invisible lights at RayTracing.shader:320) to avoid the
 t=0 self-hit that its epsilon-free sphere test would otherwise produce.

@@ -14,7 +14,7 @@ All functions are shape-polymorphic: ``state`` may be any uint32 array and
 every sampler returns ``(new_state, value)`` with value broadcast to the
 state's shape (vector samplers stack on a trailing axis).
 
-TPU notes: everything here is pure VPU element-wise math on uint32/f32 -
+Everything here is pure element-wise math on uint32/f32 -
 wraparound multiply/add, shifts, xor, and a handful of transcendentals
 (cos/log/sqrt). No gathers, no dynamic shapes; fuses into surrounding kernels.
 """

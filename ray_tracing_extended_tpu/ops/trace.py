@@ -1,8 +1,8 @@
 """The path-tracing bounce loop: an iterative, masked, fixed-shape rewrite of
-the reference's per-thread megakernel loop (Trace, RayTracing.shader:300-352).
+the reference's per-thread shader loop (Trace, RayTracing.shader:300-352).
 
-TPU mapping: the reference relies on per-thread early exit (Russian-roulette
-break, miss break). TPU wants dense fixed-shape work, so every lane iterates
+Mapping: the reference relies on per-thread early exit (Russian-roulette
+break, miss break). XLA wants dense fixed-shape work, so every lane iterates
 under an ``alive`` mask and per-lane state (origin, direction, throughput,
 RNG) only advances where the mask allows - crucially the PCG state, so a
 masked lane's random stream is frozen exactly like a returned HLSL thread's.
@@ -57,8 +57,8 @@ def trace(
       max_bounce: static; the loop runs ``bounce <= max_bounce`` inclusive
         (RayTracing.shader:305).
       intersect_fn: closest-hit implementation ``(o, d, scene) -> HitRecord``
-        (defaults to the brute-force MXU scan; the chunk-culled and
-        BVH variants slot in here).
+        (defaults to the brute-force scan; the BVH traversal slots in
+        here).
 
     Returns ``(state, incoming_light, segments)`` with incoming_light (B, 3)
     and segments (B,) int32 = number of rays actually traced per lane (each
@@ -90,9 +90,9 @@ def trace(
             counts = counts.at[bounce_idx].add(
                 jnp.sum(alive, dtype=jnp.int32)
             )
-        # Park dead lanes far outside every scene bound, pointing away: the
-        # tile-level cluster culls in the Pallas intersector then skip them
-        # entirely (a compaction-free way to stop paying for dead rays).
+        # Park dead lanes far outside every scene bound, pointing away: a
+        # BVH traversal then rejects them at the root box, so dead rays stop
+        # paying for node visits (brute force costs the same either way).
         o_live = jnp.where(alive[..., None], o, jnp.float32(1.0e9))
         d_live = jnp.where(
             alive[..., None],

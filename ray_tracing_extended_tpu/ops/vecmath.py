@@ -1,6 +1,6 @@
 """Vector math helpers matching HLSL intrinsic semantics.
 
-Everything operates on ``(..., 3)`` float32 arrays and is pure VPU
+Everything operates on ``(..., 3)`` float32 arrays and is pure
 element-wise work that XLA fuses into surrounding kernels.
 """
 

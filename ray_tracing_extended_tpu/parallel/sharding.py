@@ -1,24 +1,25 @@
-"""Multi-chip rendering: image-tile and spp sharding over a JAX device mesh.
+"""Multi-device rendering: image-tile and spp sharding over a JAX device mesh.
 
 The reference's only parallelism is per-pixel SIMT on one GPU
 (Graphics.Blit, RayTracingManager.cs:76; SURVEY.md section 2.5). The
-TPU-native scale-out axes are:
+scale-out axes across devices are:
 
   * ``tiles`` - pixel-block data parallelism: the flattened, padded pixel
-    blocks (see render.py) are sharded across chips; the scene (the analog of
-    structured buffers bound to every GPU wavefront) is replicated. Zero
-    collectives in the hot loop - embarrassingly parallel, rides nothing but
-    the final host gather (or stays sharded for on-device accumulation).
+    blocks (see render.py) are sharded across devices; the scene (the analog
+    of structured buffers bound to every GPU wavefront) is replicated. Zero
+    collectives in the hot loop, and the accumulation buffer stays sharded
+    in block layout between steps.
 
-  * ``spp`` - sample parallelism: every chip renders the full image with a
-    different frame seed, and one ``pmean`` over ICI merges them - the
-    multi-chip generalization of the reference's accumulate pass
-    (Accumulate.shader:48-50). This is the ONLY collective in the system.
+  * ``spp`` - sample parallelism: each 'spp' row renders the full image with
+    a different frame seed, and one ``all_gather`` over the interconnect
+    hands every row's frames to the fold - the multi-device generalization
+    of the reference's accumulate pass (Accumulate.shader:48-50). This is
+    the ONLY collective in the system besides the segment-count ``psum``.
 
-Both compose in a single 2D mesh: ``Mesh(devices, ('spp', 'tiles'))``. A
-progressive multi-chip render keeps the accumulation buffer sharded over
-'tiles' and steps frames by ``spp_size`` per call, so the running average is
-bit-equivalent to the single-chip sequence over the same frame indices.
+Both compose in a single 2D mesh: ``Mesh(devices, ('spp', 'tiles'))``. Step
+``s`` renders frames ``[s * spp_size, (s + 1) * spp_size)`` and folds them in
+frame order with the reference weighting, so a sharded progressive render
+equals the single-device sequence over the same frame indices.
 """
 
 from __future__ import annotations
@@ -36,7 +37,12 @@ from jax import shard_map
 from ..models.geometry import Scene
 from ..ops.accumulate import accumulate
 from ..ops.camera import Camera
-from ..render import _padded_pixel_blocks, _resolve_intersector, render_block
+from ..render import (
+    _brute_force_width,
+    _padded_pixel_blocks,
+    _resolve_intersector,
+    render_block,
+)
 from ..utils.config import RenderConfig
 
 
@@ -57,18 +63,35 @@ def make_mesh(
     return Mesh(arr, ("spp", "tiles"))
 
 
-def _blocks_for_mesh(cfg: RenderConfig, n_tiles: int) -> np.ndarray:
-    """Pixel blocks padded so the block axis divides the tile axis."""
-    blocks = _padded_pixel_blocks(cfg)
-    nb = blocks.shape[0]
-    pad = (-nb) % n_tiles
-    if pad:
-        blocks = np.concatenate([blocks, np.tile(blocks[-1:], (pad, 1))])
-    return blocks
+def _blocks(scene: Scene, cfg: RenderConfig, mesh: Mesh) -> np.ndarray:
+    """Pixel blocks whose count divides the 'tiles' axis."""
+    return _padded_pixel_blocks(
+        cfg, _brute_force_width(scene, cfg), mesh.shape["tiles"]
+    )
+
+
+def _render_shard(scene, camera, cfg, blocks_local, frame):
+    """Inside ``shard_map``: this device's blocks of frame ``frame + row``
+    (row = its 'spp' index) -> (every row's frames (spp_size, nb_local, B,
+    3), total live segments over the mesh)."""
+    intersect_fn = _resolve_intersector(scene, cfg)
+    row = lax.axis_index("spp").astype(jnp.uint32)
+
+    def run(block_idx):
+        img, segs = render_block(
+            scene, camera, cfg, frame + row, block_idx,
+            intersect_fn=intersect_fn,
+        )
+        return img, jnp.sum(segs, dtype=jnp.uint32)
+
+    flat, segs = lax.map(run, blocks_local)  # (nb_local, B, 3)
+    frames = lax.all_gather(flat, axis_name="spp")
+    segs = lax.psum(jnp.sum(segs, dtype=jnp.uint32), ("spp", "tiles"))
+    return frames, segs
 
 
 @functools.partial(
-    jax.jit, static_argnames=("cfg", "mesh"), donate_argnums=(3,)
+    jax.jit, static_argnames=("cfg", "mesh", "n_steps"), donate_argnums=(3,)
 )
 def render_step_sharded(
     scene: Scene,
@@ -77,274 +100,71 @@ def render_step_sharded(
     accum,
     frame,
     mesh: Mesh,
+    n_steps: int = 1,
+    weight0=None,
 ):
-    """One multi-chip progressive step.
+    """``n_steps`` multi-device progressive steps fused into one dispatch.
 
-    Renders ``spp_size`` frames' worth of samples in one launch (each 'spp'
-    row of the mesh uses frame index ``frame + row``), tile-sharded within
-    each row, then folds the merged sample mean into the running average
-    ``accum`` (donated). Returns the new accumulation image, laid out with
-    rows sharded over 'tiles' so progressive loops never gather to host.
+    Step i renders frames ``frame + i * spp_size + r`` (r = 'spp' row) and
+    folds them into ``accum`` (block layout, donated) in frame order with
+    the reference weighting - per-frame clamp included, so parity mode is
+    exact. Frame ``frame + j`` folds with weight index ``weight0 + j``
+    (default ``weight0 = frame``); ``reset_on_move`` restarts the weights
+    without restarting the RNG frames. Every block runs the same program as
+    a single-device frame. Returns (accum', total live segments uint32)."""
+    k = mesh.shape["spp"]
+    blocks = jnp.asarray(_blocks(scene, cfg, mesh))
+    frame = jnp.asarray(frame, jnp.uint32)
+    weight0 = frame if weight0 is None else jnp.asarray(weight0, jnp.uint32)
 
-    The running average stays EXACTLY the reference's weighting
-    (Accumulate.shader:48): merging k frames with equal weight then folding
-    with weight k/(frame+k) equals folding them one at a time.
-    """
-    spp_size = mesh.shape["spp"]
-    n_tiles = mesh.shape["tiles"]
-    blocks = jnp.asarray(_blocks_for_mesh(cfg, n_tiles))
-    intersect_fn = _resolve_intersector(scene, cfg)
-
-    def shard_fn(blocks_local, accum_local, frame):
-        # blocks_local: (nb/n_tiles, B); one spp row + one tile column each.
-        row = lax.axis_index("spp").astype(jnp.uint32)
-        my_frame = frame + row
-
-        def run(block_idx):
-            img, _ = render_block(
-                scene, camera, cfg, my_frame, block_idx,
-                intersect_fn=intersect_fn,
+    def shard_fn(blocks_local, accum_local, frame, weight0):
+        def step(i, carry):
+            acc, total = carry
+            j = i.astype(jnp.uint32) * jnp.uint32(k)
+            frames, segs = _render_shard(
+                scene, camera, cfg, blocks_local, frame + j
             )
-            return img
+            for r in range(k):
+                acc = accumulate(
+                    acc, frames[r], weight0 + j + jnp.uint32(r),
+                    clamp=cfg.clamp_accumulate,
+                )
+            return acc, total + segs
 
-        flat = lax.map(run, blocks_local)  # (nb_local, B, 3)
-        if cfg.clamp_accumulate and spp_size > 1:
-            # Parity mode: the reference clamps EVERY frame
-            # (Accumulate.shader:50), so folding k frames then clamping
-            # once is not bit-identical. Gather the k spp rows' frames and
-            # fold them sequentially with the per-frame clamp - k x the
-            # collective bytes of the pmean path, exact output.
-            frames_k = lax.all_gather(flat, axis_name="spp")  # (k, ...)
-            out = accum_local
-            frame_f = jnp.asarray(frame, jnp.float32)
-            for i in range(spp_size):
-                w = 1.0 / (frame_f + jnp.float32(i + 1))
-                out = jnp.clip(out * (1.0 - w) + frames_k[i] * w, 0.0, 1.0)
-            return out
-        # THE one collective: average the spp rows' samples over ICI.
-        flat = lax.pmean(flat, axis_name="spp")
-        # Fold k = spp_size frames into the running average at once:
-        # weight = k / (frame + k) - exactly the reference weighting when
-        # no per-frame clamp intervenes.
-        k = jnp.float32(spp_size)
-        w = k / (jnp.asarray(frame, jnp.float32) + k)
-        out = accum_local * (1.0 - w) + flat * w
-        if cfg.clamp_accumulate:
-            out = jnp.clip(out, 0.0, 1.0)
-        return out
+        return lax.fori_loop(
+            0, n_steps, step, (accum_local, jnp.uint32(0))
+        )
 
-    out = shard_map(
+    return shard_map(
         shard_fn,
         mesh=mesh,
-        in_specs=(P("tiles"), P("tiles"), P()),
-        out_specs=P("tiles"),
+        in_specs=(P("tiles"), P("tiles"), P(), P()),
+        out_specs=(P("tiles"), P()),
         check_vma=False,
-    )(blocks, accum, frame)
-    return out
+    )(blocks, accum, frame, weight0)
 
 
-def init_accum_blocks(cfg: RenderConfig, mesh: Mesh):
+def init_accum_blocks(scene: Scene, cfg: RenderConfig, mesh: Mesh):
     """Zero accumulation buffer in sharded block layout (nb, B, 3), placed
     with blocks sharded over 'tiles' and replicated over 'spp'."""
-    blocks = _blocks_for_mesh(cfg, mesh.shape["tiles"])
-    z = jnp.zeros((blocks.shape[0], blocks.shape[1], 3), jnp.float32)
-    sharding = NamedSharding(mesh, P("tiles"))
-    return jax.device_put(z, sharding)
+    return image_to_blocks(
+        np.zeros((cfg.height, cfg.width, 3), np.float32), scene, cfg, mesh
+    )
+
+
+def image_to_blocks(img, scene: Scene, cfg: RenderConfig, mesh: Mesh):
+    """(H, W, 3) image -> the block layout the sharded renders of ``scene``
+    use (the inverse of ``blocks_to_image``; padding pixels are zero)."""
+    nb, block = _blocks(scene, cfg, mesh).shape
+    flat = np.zeros((nb * block, 3), np.float32)
+    flat[: cfg.num_pixels] = np.asarray(img, np.float32).reshape(-1, 3)
+    return jax.device_put(
+        flat.reshape(nb, block, 3), NamedSharding(mesh, P("tiles"))
+    )
 
 
 def blocks_to_image(accum_blocks, cfg: RenderConfig):
     """Gather the sharded block layout back into an (H, W, 3) image."""
-    flat = jnp.reshape(accum_blocks, (-1, 3))[: cfg.num_pixels]
-    return np.asarray(flat).reshape(cfg.height, cfg.width, 3)
+    flat = np.asarray(accum_blocks).reshape(-1, 3)[: cfg.num_pixels]
+    return flat.reshape(cfg.height, cfg.width, 3)
 
-
-@functools.partial(jax.jit, static_argnames=("cfg", "mesh"))
-def render_frame_mega_sharded(
-    scene: Scene, camera: Camera, cfg: RenderConfig, frame, mesh: Mesh
-):
-    """Multi-chip megakernel frame: the image splits into horizontal bands
-    of TS-aligned rows over the 'tiles' axis (each chip runs the fused
-    kernel on its band - zero hot-loop collectives), while 'spp' rows
-    render the same band with different frame seeds and pmean-merge (the
-    one collective). Band split is bit-identical to a single-chip render of
-    the same frame indices (per-pixel seeds are global).
-
-    Returns ((H, W, 3) image, total live segments) with the image laid out
-    row-sharded over 'tiles'.
-    """
-    from ..kernels.megakernel import render_frame_mega, tile_size
-
-    TS = tile_size(
-        scene.packed, cfg.adaptive_spp, override=cfg.mega_tile_size
-    )
-
-    # CPU (tests / virtual meshes) requires Pallas interpret mode
-    interpret = mesh.devices.flat[0].platform != "tpu"
-    n_bands = mesh.shape["tiles"]
-    rows_per_band = -(-cfg.height // n_bands)
-    bh = -(-rows_per_band // TS) * TS  # TS-aligned band height
-
-    def shard_fn(frame):
-        band = lax.axis_index("tiles")
-        row = lax.axis_index("spp").astype(jnp.uint32)
-        img, segs = render_frame_mega(
-            scene,
-            camera,
-            cfg,
-            jnp.asarray(frame, jnp.uint32) + row,
-            y0=band * bh,
-            band_height=bh,
-            interpret=interpret,
-        )
-        img = lax.pmean(img, axis_name="spp")
-        segs = lax.psum(segs, axis_name=("spp", "tiles"))
-        return img, segs
-
-    img, segs = shard_map(
-        shard_fn,
-        mesh=mesh,
-        in_specs=(P(),),
-        out_specs=(P("tiles"), P()),
-        check_vma=False,
-    )(frame)
-    return img[: cfg.height], segs
-
-
-def mega_band_height(
-    scene: Scene, cfg: RenderConfig, mesh: Mesh,
-    batched: bool = False, paired: bool = False,
-) -> int:
-    """TS-aligned band height for the megakernel band split over 'tiles'.
-
-    Must be computed with the same (batched, paired) flags as the launch:
-    the tile-size default depends on them (kernels/megakernel.tile_size),
-    and the band height must be a multiple of the actual TS."""
-    from ..kernels.megakernel import tile_size
-
-    TS = tile_size(
-        scene.packed, cfg.adaptive_spp, batched=batched, paired=paired,
-        override=cfg.mega_tile_size,
-    )
-    n_bands = mesh.shape["tiles"]
-    rows_per_band = -(-cfg.height // n_bands)
-    return -(-rows_per_band // TS) * TS
-
-
-def init_accum_mega_bands(
-    scene: Scene, cfg: RenderConfig, mesh: Mesh,
-    batched: bool = False, paired: bool = False,
-):
-    """Zero accumulation buffer in band layout (n_bands * bh, W, 3), rows
-    sharded over 'tiles'. Feed to render_frames_mega_sharded; crop the
-    final gather with mega_bands_to_image."""
-    bh = mega_band_height(scene, cfg, mesh, batched=batched, paired=paired)
-    n_bands = mesh.shape["tiles"]
-    z = jnp.zeros((n_bands * bh, cfg.width, 3), jnp.float32)
-    return jax.device_put(z, NamedSharding(mesh, P("tiles")))
-
-
-def mega_bands_to_image(accum_bands, cfg: RenderConfig):
-    """Crop the band-padded accumulator back to the (H, W, 3) image."""
-    return np.asarray(accum_bands)[: cfg.height]
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("cfg", "n_frames", "mesh"),
-    donate_argnums=(4,),
-)
-def render_frames_mega_sharded(
-    scene: Scene,
-    camera: Camera,
-    cfg: RenderConfig,
-    frame0,
-    accum_bands,
-    n_frames: int,
-    mesh: Mesh,
-    pair_costs=None,
-):
-    """Multi-chip K-frame batched megakernel step: the parity-headline
-    scheduler (K frames fused per launch + cost-guided lane pairing)
-    composed with the 'tiles' band split.
-
-    Each band runs ONE render_frames_mega launch over its own rows:
-    the K-frame fold, multi-pixel lanes and cost pairing are all
-    tile-local, so the band split is bit-identical to a single-chip
-    batched launch over the same frame indices (zero hot-loop
-    collectives; the segment count rides one psum).
-
-    ``accum_bands``: (n_bands * bh, W, 3) running average in band layout
-    (init_accum_mega_bands), rows sharded over 'tiles'; donated.
-    ``pair_costs``: None (blind pairing defaults) or the previous step's
-    (n_bands * bh, W) int32 segment map, band-sharded - chain it across
-    steps exactly like the single-chip render_frames_and_accumulate.
-
-    Returns (accum_bands', total segments uint32, (n_bands * bh, W) i32
-    segment map in band layout). 'tiles'-only: an 'spp' > 1 mesh would
-    need a cross-chip sequential fold of each row's K frames - use
-    batch=1 there (progressive.py enforces this).
-    """
-    if mesh.shape["spp"] != 1:
-        raise ValueError(
-            "render_frames_mega_sharded composes the K-frame batch with "
-            "the 'tiles' band split only; spp_parallel must be 1 "
-            "(the in-kernel sequential fold of K frames cannot merge "
-            "across 'spp' rows with one pmean)"
-        )
-    from ..kernels.megakernel import render_frames_mega
-
-    paired = pair_costs is not None
-    bh = mega_band_height(
-        scene, cfg, mesh, batched=n_frames > 1, paired=paired
-    )
-    n_bands = mesh.shape["tiles"]
-    if accum_bands.shape != (n_bands * bh, cfg.width, 3):
-        raise ValueError(
-            f"accum_bands shape {accum_bands.shape} != expected "
-            f"{(n_bands * bh, cfg.width, 3)}; build it with "
-            "init_accum_mega_bands using the same batched/paired flags "
-            "(the TS default - and with it the band height - depends "
-            "on them)"
-        )
-    interpret = mesh.devices.flat[0].platform != "tpu"
-
-    def shard_fn(acc_local, costs_local, frame0):
-        band = lax.axis_index("tiles")
-        acc2, segs, smap = render_frames_mega(
-            scene, camera, cfg, frame0, acc_local, n_frames,
-            interpret=interpret, y0=band * bh, band_height=bh,
-            segs_map=True, pair_costs=costs_local, band_local_io=True,
-        )
-        segs = lax.psum(segs, axis_name="tiles")
-        return acc2, segs, smap
-
-    def shard_fn_unpaired(acc_local, frame0):
-        return shard_fn(acc_local, None, frame0)
-
-    if paired:
-        return shard_map(
-            shard_fn,
-            mesh=mesh,
-            in_specs=(P("tiles"), P("tiles"), P()),
-            out_specs=(P("tiles"), P(), P("tiles")),
-            check_vma=False,
-        )(accum_bands, pair_costs, frame0)
-    return shard_map(
-        shard_fn_unpaired,
-        mesh=mesh,
-        in_specs=(P("tiles"), P()),
-        out_specs=(P("tiles"), P(), P("tiles")),
-        check_vma=False,
-    )(accum_bands, frame0)
-
-
-def render_frame_sharded(
-    scene: Scene, camera: Camera, cfg: RenderConfig, frame, mesh: Mesh
-):
-    """Single frame, tile-sharded (no accumulation): convenience wrapper
-    returning the (H, W, 3) image."""
-    accum = init_accum_blocks(cfg, mesh)
-    out = render_step_sharded(
-        scene, camera, cfg, accum, jnp.uint32(frame) * mesh.shape["spp"], mesh
-    )
-    return blocks_to_image(out, cfg)

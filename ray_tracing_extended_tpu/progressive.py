@@ -3,7 +3,7 @@ OnRenderImage (RayTracingManager.cs:49-93) as a production driver with
 checkpoint/resume and structured metrics (both absent in the reference -
 SURVEY.md section 5).
 
-Per frame: render (megakernel or XLA path), fold into the running average
+Per frame: render, fold into the running average
 with the reference's 1/(frame+1) weighting, optionally checkpoint
 (atomically) and emit one JSONL metrics line (Mrays/s from live segment
 counts, spp/s, convergence delta).
@@ -11,10 +11,12 @@ counts, spp/s, convergence delta).
 
 from __future__ import annotations
 
+import os
 import time
 
-import numpy as np
+import jax
 import jax.numpy as jnp
+import numpy as np
 
 from .models.geometry import Scene
 from .ops.accumulate import accumulate
@@ -42,14 +44,11 @@ def render_progressive(
 ):
     """Accumulate ``frames`` frames and return the (H, W, 3) average.
 
-    ``batch``: frames fused per dispatch (static camera only). On the
-    megakernel path each chunk is ONE kernel launch whose per-pixel cost
-    telemetry feeds the NEXT chunk's cost-guided lane pairing
-    (render.render_frames_and_accumulate pair_costs chaining) - the fast
-    parity path (bench.py's parity mode; ~263 vs ~182 Mrays/s unbatched
-    on the RTIOW headline). Identical estimator and accumulation values
-    (fold within 1 ulp/step); per-frame alive_frac/accum_var metrics are
-    unavailable (one JSONL line per chunk instead).
+    ``batch``: frames fused per dispatch (static camera only): each chunk
+    of ``batch`` frames is one ``render_frames_and_accumulate`` call, with
+    the same estimator and fold as the per-frame loop. Per-frame
+    alive_frac/accum_var metrics are unavailable (one JSONL line per chunk
+    instead).
 
     ``cameras``: optional per-frame Camera sequence (fly-throughs,
     BASELINE config 5). With a static camera the running average converges
@@ -76,20 +75,14 @@ def render_progressive(
     with the same weights as a fresh static render (the per-frame clamp
     included), and the Welford variance signal restarts with the run.
 
-    ``mesh``: optional jax.sharding.Mesh ('spp', 'tiles') - each frame
-    renders multi-chip via the sharded megakernel (horizontal bands over
-    'tiles', zero hot-loop collectives; 'spp' rows render extra frame
-    seeds merged by the one pmean - parallel/sharding.py). The band split
-    is bit-identical to single-chip mega renders of the same frame
-    indices. With spp_parallel > 1 each step folds spp_size
-    equally-weighted frames at once, which matches the reference
-    weighting exactly only without the per-frame clamp - HDR mode
-    (clamp_accumulate=False) is required then. ``batch`` > 1 composes
-    with an spp_parallel=1 mesh: the parity-headline scheduler (K-frame
-    fused launches + cost-guided pairing, segment map chained across
-    chunks) runs per band, bit-identical to the single-chip batched
-    sequence (render_frames_mega_sharded). ``reset_on_move`` composes at
-    step granularity (each step's spp_size frame seeds share a camera).
+    ``mesh``: optional jax.sharding.Mesh ('spp', 'tiles') - each step
+    renders multi-device (pixel blocks over 'tiles', zero hot-loop
+    collectives; 'spp' rows render extra frame seeds - parallel/sharding.py)
+    and folds its ``spp_size`` frames in frame order, so the result equals
+    the single-device render of the same frame indices. On a mesh,
+    ``frames`` counts steps of ``spp_size`` frames and ``cameras`` holds one
+    camera per step. ``batch`` > 1 fuses that many steps per dispatch;
+    ``reset_on_move`` restarts at step granularity.
     """
     if reset_on_move and cameras is None:
         raise ValueError("reset_on_move requires a cameras sequence")
@@ -105,19 +98,17 @@ def render_progressive(
                 "batch > 1 fuses frames into one launch over a single "
                 "scene; per-frame scenes need batch=1"
             )
-        import jax as _jax
-
-        struct0 = _jax.tree_util.tree_structure(scenes[0])
+        struct0 = jax.tree_util.tree_structure(scenes[0])
         shapes0 = [
             (x.shape, x.dtype)
-            for x in _jax.tree_util.tree_leaves(scenes[0])
+            for x in jax.tree_util.tree_leaves(scenes[0])
         ]
         for i, sc in enumerate(scenes[1:], 1):
             if (
-                _jax.tree_util.tree_structure(sc) != struct0
+                jax.tree_util.tree_structure(sc) != struct0
                 or [
                     (x.shape, x.dtype)
-                    for x in _jax.tree_util.tree_leaves(sc)
+                    for x in jax.tree_util.tree_leaves(sc)
                 ]
                 != shapes0
             ):
@@ -127,18 +118,12 @@ def render_progressive(
                     "counts fixed (pad with never-hit primitives) so the "
                     "compiled program is reused"
                 )
+    if batch > 1 and cameras is not None:
+        raise ValueError(
+            "batch > 1 fuses frames into one dispatch under a single "
+            "camera; per-frame cameras need batch=1"
+        )
     if mesh is not None:
-        if batch > 1 and mesh.shape["spp"] != 1:
-            raise ValueError(
-                "batch > 1 composes with the 'tiles' band split only; "
-                "use an spp_parallel=1 mesh (the in-kernel K-frame fold "
-                "is sequential and cannot merge across 'spp' rows)"
-            )
-        if batch > 1 and cameras is not None:
-            raise ValueError(
-                "batch > 1 fuses frames into one launch under a single "
-                "camera; per-frame cameras need batch=1"
-            )
         return _render_progressive_sharded(
             scene, camera, cfg, frames, mesh,
             checkpoint_path=checkpoint_path,
@@ -170,9 +155,7 @@ def render_progressive(
                     import dataclasses as _dc
 
                     part = ckpt.hash_tree(
-                        _dc.replace(
-                            sc, tri_bvh=None, sphere_bvh=None, packed=None
-                        )
+                        _dc.replace(sc, tri_bvh=None, sphere_bvh=None)
                     )
                 hs.update(part.encode())
             fingerprint += ":scenes:" + hs.hexdigest()[:16]
@@ -181,12 +164,9 @@ def render_progressive(
             # resuming a reset_on_move checkpoint without the flag (or
             # vice versa) would silently blend incompatible weightings
             fingerprint += ":reset_on_move"
-        if resume:
-            import os
-
-            if os.path.exists(checkpoint_path):
-                accum_np, start_frame = ckpt.load(checkpoint_path, fingerprint)
-                accum = jnp.asarray(accum_np)
+        if resume and os.path.exists(checkpoint_path):
+            accum_np, start_frame = ckpt.load(checkpoint_path, fingerprint)
+            accum = jnp.asarray(accum_np)
     if cameras is not None and len(cameras) < start_frame + frames:
         raise ValueError(
             f"cameras covers {len(cameras)} frames; rendering frames "
@@ -200,22 +180,15 @@ def render_progressive(
             f"{start_frame + frames}"
         )
     if batch > 1:
-        if cameras is not None:
-            raise ValueError(
-                "batch > 1 fuses frames into one launch under a single "
-                "camera; per-frame cameras need batch=1"
-            )
         from .render import render_frames_and_accumulate
 
-        cmap = None
         f = start_frame
         end = start_frame + frames
         while f < end:
             k = min(batch, end - f)
             t0 = time.perf_counter()
-            accum, segs, cmap = render_frames_and_accumulate(
-                scene, camera, cfg, accum, jnp.uint32(f), k,
-                pair_costs=cmap, segs_map=True,
+            accum, segs = render_frames_and_accumulate(
+                scene, camera, cfg, accum, jnp.uint32(f), k
             )
             segs = int(segs)  # one host sync per chunk
             wall = time.perf_counter() - t0
@@ -231,32 +204,14 @@ def render_progressive(
                         extra={"batched_frames": k},
                     )
                 )
-            if (
-                checkpoint_path is not None
-                and checkpoint_every
-                and (f // checkpoint_every) > ((f - k) // checkpoint_every)
-            ):
+            if _crossed(f - k, f, checkpoint_path, checkpoint_every):
                 ckpt.save(checkpoint_path, np.asarray(accum), f, fingerprint)
         if checkpoint_path is not None:
             ckpt.save(checkpoint_path, np.asarray(accum), end, fingerprint)
         return np.asarray(accum)
 
-    def _same_cam(a, b):
-        import jax
-
-        la = jax.tree_util.tree_leaves(a)
-        lb = jax.tree_util.tree_leaves(b)
-        return len(la) == len(lb) and all(
-            np.array_equal(np.asarray(x), np.asarray(y))
-            for x, y in zip(la, lb)
-        )
-
-    # seg0 = first frame of the current same-camera run (reset_on_move);
-    # on resume, back-scan so mid-run checkpoints keep exact weights
-    seg0 = start_frame
-    if reset_on_move:
-        while seg0 > 0 and _same_cam(cameras[seg0 - 1], cameras[seg0]):
-            seg0 -= 1
+    # seg0 = first frame of the current same-camera run (reset_on_move)
+    seg0 = _run_start(cameras, start_frame) if reset_on_move else start_frame
 
     # Welford running second moment across frames: var(mean) ~= mean(M2) /
     # (n (n - 1)) is the MC convergence signal promised in SURVEY section 5.
@@ -315,11 +270,7 @@ def render_progressive(
                     extra=extra,
                 )
             )
-        if (
-            checkpoint_path is not None
-            and checkpoint_every
-            and (f + 1) % checkpoint_every == 0
-        ):
+        if _crossed(f, f + 1, checkpoint_path, checkpoint_every):
             ckpt.save(checkpoint_path, np.asarray(accum), f + 1, fingerprint)
 
     if checkpoint_path is not None:
@@ -330,6 +281,32 @@ def render_progressive(
             fingerprint,
         )
     return np.asarray(accum)
+
+
+def _same_cam(a, b) -> bool:
+    la = jax.tree_util.tree_leaves(a)
+    lb = jax.tree_util.tree_leaves(b)
+    return len(la) == len(lb) and all(
+        np.array_equal(np.asarray(x), np.asarray(y)) for x, y in zip(la, lb)
+    )
+
+
+def _run_start(cameras, i: int) -> int:
+    """First index of the same-camera run holding ``i`` (reset_on_move).
+    On resume this back-scan keeps mid-run checkpoints at exact weights."""
+    while i > 0 and _same_cam(cameras[i - 1], cameras[i]):
+        i -= 1
+    return i
+
+
+def _crossed(prev: int, cur: int, checkpoint_path, every: int) -> bool:
+    """True when advancing from ``prev`` to ``cur`` frames (or steps) passes
+    a multiple of ``every`` - a periodic checkpoint is due."""
+    return (
+        checkpoint_path is not None
+        and bool(every)
+        and cur // every > prev // every
+    )
 
 
 def _render_progressive_sharded(
@@ -346,192 +323,87 @@ def _render_progressive_sharded(
     batch: int = 1,
     reset_on_move: bool = False,
 ):
-    """Multi-chip progressive driver (BASELINE config 5 composition):
-    per step, one sharded megakernel launch renders ``spp_size`` frames'
-    samples (bands over 'tiles'; frame seeds over 'spp'), folded into the
-    running average with the reference weighting. Step s covers frame
-    indices [s * spp_size, (s + 1) * spp_size), and folding the step's
-    equal-weight sample mean with weight 1/(s+1) reproduces the flat
-    average over all frames rendered so far.
+    """Multi-device progressive driver: step s renders frames
+    ``[s * spp_size, (s + 1) * spp_size)`` under ``cameras[s]`` (or the
+    static camera) and folds them in frame order. Each dispatch is one
+    ``render_step_sharded`` call (``batch`` steps under a static camera, else
+    one) on the donated accumulator, which lives in the sharded block layout
+    (parallel/sharding.py) and is gathered to an image only for checkpoints
+    and the result. ``frames`` counts steps, and checkpoints record steps.
 
-    ``batch`` > 1 (requires an spp_parallel=1 mesh; enforced upstream):
-    the parity-headline scheduler runs per band - each chunk is ONE
-    sharded launch of K frames with the cost-paired lane schedule, the
-    segment map chaining into the next chunk's pairing exactly like the
-    single-chip path (render_frames_mega_sharded). Bit-identical to the
-    single-chip batched+paired sequence over the same frame indices.
-
-    ``reset_on_move`` (requires ``cameras``; step granularity): when
-    cameras[s] differs from cameras[s-1] the running average restarts,
-    so the result is the converged average of the trailing run of
-    identical cameras - each step still folds its spp_size frame seeds
-    with the run-relative weight.
-
-    NOTE (ADVICE round 3): on this path ``frames`` counts STEPS and
-    ``cameras`` is PER-STEP, not per-frame - step s renders its spp_size
-    frame seeds under the single camera cameras[s] (one sharded launch
-    cannot move the camera between its fused frame seeds). A fly-through
-    of N views over an spp-sharded mesh therefore renders N steps =
-    N * spp_size frames, spp_size seeds per view - by design, not a
-    stride bug; the single-chip path (mesh=None) keeps the per-frame
-    contract."""
-    from .parallel.sharding import render_frame_mega_sharded
+    ``reset_on_move`` (requires ``cameras``): when cameras[s] differs from
+    cameras[s-1] the running average restarts, so the result is the fresh
+    average of the trailing run of identical cameras."""
+    from .parallel.sharding import (
+        blocks_to_image,
+        image_to_blocks,
+        init_accum_blocks,
+        render_step_sharded,
+    )
 
     spp_size = mesh.shape["spp"]
-    if spp_size > 1 and cfg.clamp_accumulate:
-        raise ValueError(
-            "spp-sharded progressive accumulation folds spp_size frames "
-            "per step, which is not bit-equal under the reference's "
-            "per-frame clamp; use HDR mode (clamp_accumulate=False) or "
-            "an spp=1 mesh"
-        )
     start_step = 0
-    accum = jnp.zeros((cfg.height, cfg.width, 3), jnp.float32)
+    accum = init_accum_blocks(scene, cfg, mesh)
     fingerprint = None
     if checkpoint_path is not None:
         fingerprint = ckpt.state_hash(
             scene, cameras if cameras is not None else camera, cfg
         )
+        if spp_size > 1:
+            # the checkpoint counts steps of spp_size frames
+            fingerprint += f":spp{spp_size}"
         if reset_on_move:
             fingerprint += ":reset_on_move"
-        if resume:
-            import os
-
-            if os.path.exists(checkpoint_path):
-                accum_np, start_step = ckpt.load(checkpoint_path, fingerprint)
-                accum = jnp.asarray(accum_np)
-    if cameras is not None and len(cameras) < start_step + frames:
+        if resume and os.path.exists(checkpoint_path):
+            img, start_step = ckpt.load(checkpoint_path, fingerprint)
+            accum = image_to_blocks(img, scene, cfg, mesh)
+    end = start_step + frames
+    if cameras is not None and len(cameras) < end:
         raise ValueError(
             f"cameras covers {len(cameras)} steps; rendering steps "
-            f"[{start_step}, {start_step + frames}) needs "
-            f"{start_step + frames} (one camera per step - each step "
-            f"renders {spp_size} frame seeds under it)"
+            f"[{start_step}, {end}) needs {end} (one camera per step - "
+            f"each step renders {spp_size} frame seeds under it)"
         )
 
-    if batch > 1:
-        # K-frame batched + cost-paired over the band split ('tiles'-only
-        # mesh): the accumulator lives in band layout on-device across
-        # chunks; checkpoints store the cropped image.
-        import jax
-        from jax.sharding import NamedSharding, PartitionSpec as P
-        from .parallel.sharding import (
-            mega_band_height,
-            mega_bands_to_image,
-            render_frames_mega_sharded,
-        )
-
-        # The TS default (and with it the band height) differs between
-        # paired and unpaired launches; chain from a ZEROS cost map so
-        # every chunk is cost-paired with one constant band layout. A
-        # zeros map is the identity pairing - the rendered estimator is
-        # bit-identical for ANY cost map (render_frames_mega docstring),
-        # so this matches the single-chip chain sample-for-sample.
-        bh = mega_band_height(scene, cfg, mesh, batched=True, paired=True)
-        n_bands = mesh.shape["tiles"]
-        pad = n_bands * bh - cfg.height
-        sh = NamedSharding(mesh, P("tiles"))
-        acc_bands = jax.device_put(
-            jnp.concatenate(
-                [
-                    jnp.asarray(accum, jnp.float32),
-                    jnp.zeros((pad, cfg.width, 3), jnp.float32),
-                ]
-            ),
-            sh,
-        )
-        cmap = jax.device_put(
-            jnp.zeros((n_bands * bh, cfg.width), jnp.int32), sh
-        )
-        f = start_step
-        end = start_step + frames
-        while f < end:
-            k = min(batch, end - f)
-            t0 = time.perf_counter()
-            acc_bands, segs, cmap = render_frames_mega_sharded(
-                scene, camera, cfg, jnp.uint32(f), acc_bands, k, mesh,
-                pair_costs=cmap,
-            )
-            segs = int(segs)
-            wall = time.perf_counter() - t0
-            f += k
-            if metrics is not None:
-                metrics.log(
-                    FrameMetrics(
-                        frame=f - 1,
-                        wall_s=wall,
-                        rays=segs,
-                        pixels=cfg.num_pixels,
-                        spp=cfg.spp * k,
-                        extra={
-                            "batched_frames": k,
-                            "mesh": dict(mesh.shape),
-                        },
-                    )
-                )
-            if (
-                checkpoint_path is not None
-                and checkpoint_every
-                and (f // checkpoint_every) > ((f - k) // checkpoint_every)
-            ):
-                ckpt.save(
-                    checkpoint_path, mega_bands_to_image(acc_bands, cfg),
-                    f, fingerprint,
-                )
-        out = mega_bands_to_image(acc_bands, cfg)
-        if checkpoint_path is not None:
-            ckpt.save(checkpoint_path, out, end, fingerprint)
-        return out
-
-    def _same_cam(a, b):
-        import jax
-
-        la = jax.tree_util.tree_leaves(a)
-        lb = jax.tree_util.tree_leaves(b)
-        return len(la) == len(lb) and all(
-            np.array_equal(np.asarray(x), np.asarray(y))
-            for x, y in zip(la, lb)
-        )
-
-    seg0 = start_step
-    if reset_on_move:
-        while seg0 > 0 and _same_cam(cameras[seg0 - 1], cameras[seg0]):
-            seg0 -= 1
-
-    for s in range(start_step, start_step + frames):
+    seg0 = _run_start(cameras, start_step) if reset_on_move else start_step
+    s = start_step
+    while s < end:
+        n = min(batch, end - s)  # batch > 1 only with a static camera
         cam = cameras[s] if cameras is not None else camera
         if reset_on_move and s > start_step and not _same_cam(
             cameras[s - 1], cam
         ):
             seg0 = s
+        # reset_on_move folds with run-relative weights
+        w0 = (s - seg0 if reset_on_move else s) * spp_size
         t0 = time.perf_counter()
-        img, segs = render_frame_mega_sharded(
-            scene, cam, cfg, jnp.uint32(s * spp_size), mesh
+        accum, segs = render_step_sharded(
+            scene, cam, cfg, accum, jnp.uint32(s * spp_size), mesh,
+            n_steps=n, weight0=jnp.uint32(w0),
         )
-        ws = (s - seg0) if reset_on_move else s
-        accum = accumulate(accum, img, ws, clamp=cfg.clamp_accumulate)
-        segs = int(segs)  # one host sync per step
+        segs = int(segs)  # one host sync per dispatch
         wall = time.perf_counter() - t0
+        s += n
         if metrics is not None:
+            extra = {"mesh": dict(mesh.shape)}
+            if batch > 1:
+                extra["batched_frames"] = n
             metrics.log(
                 FrameMetrics(
-                    frame=s,
+                    frame=s - 1,
                     wall_s=wall,
                     rays=segs,
                     pixels=cfg.num_pixels,
-                    spp=cfg.spp * spp_size,
-                    extra={"mesh": dict(mesh.shape)},
+                    spp=cfg.spp * spp_size * n,
+                    extra=extra,
                 )
             )
-        if (
-            checkpoint_path is not None
-            and checkpoint_every
-            and (s + 1) % checkpoint_every == 0
-        ):
-            ckpt.save(checkpoint_path, np.asarray(accum), s + 1, fingerprint)
+        if _crossed(s - n, s, checkpoint_path, checkpoint_every):
+            ckpt.save(
+                checkpoint_path, blocks_to_image(accum, cfg), s, fingerprint
+            )
 
+    out = blocks_to_image(accum, cfg)
     if checkpoint_path is not None:
-        ckpt.save(
-            checkpoint_path, np.asarray(accum), start_step + frames,
-            fingerprint,
-        )
-    return np.asarray(accum)
+        ckpt.save(checkpoint_path, out, end, fingerprint)
+    return out

@@ -1,9 +1,9 @@
-"""Frame rendering driver: the TPU analog of RayTracingManager.OnRenderImage.
+"""Frame rendering driver: the analog of RayTracingManager.OnRenderImage.
 
 The reference launches one fragment thread per pixel (Graphics.Blit,
 RayTracingManager.cs:76) then averages frames (accumulate pass, :79-81). Here
 a frame render is a single jitted program: pixels are flattened, padded to a
-lane-aligned block size, and processed as dense (block,) batches - each block
+whole number of blocks, and processed as dense (block,) batches - each block
 runs the spp loop (sequential, because the reference threads ONE RNG state
 through all of a pixel's samples, RayTracing.shader:374-385) around the
 masked bounce loop (ops/trace.py). Blocks are mapped with ``lax.map`` to
@@ -39,8 +39,6 @@ def _resolve_intersector(
 
             return closest_hit_bvh
         return None  # trace() defaults to brute force
-    if cfg.intersector == "mega":
-        return None  # handled at frame level, not per-bounce
     if cfg.intersector == "bruteforce":
         return None
     if cfg.intersector == "bvh":
@@ -62,12 +60,14 @@ def render_block(
     """Render one flat block of pixels -> (B, 3) linear radiance.
 
     ``pix_idx`` is (B,) int32 global pixel index (y * width + x, row 0 at the
-    bottom). Out-of-range padding indices are rendered (their rays are valid,
-    just redundant) and discarded by the caller - cheaper than masking inside
-    the hot loop.
+    bottom). Padding indices (>= the pixel count) render the last pixel -
+    valid rays, cheaper than masking inside the hot loop - and the caller
+    discards their radiance; their segments are not counted.
     """
     width = cfg.width
     pix_idx = pix_idx.astype(jnp.int32)
+    real = pix_idx < cfg.num_pixels
+    pix_idx = jnp.minimum(pix_idx, cfg.num_pixels - 1)
     x = pix_idx % width
     y = pix_idx // width
     state = rng_ops.seed(pix_idx, frame)
@@ -99,55 +99,66 @@ def render_block(
         jnp.zeros((cfg.max_bounce + 1,), jnp.int32),
     )
     _, total, segs, counts = lax.fori_loop(0, cfg.spp, spp_body, init)
+    segs = jnp.where(real, segs, 0)
     if with_bounce_counts:
         return total / jnp.float32(cfg.spp), segs, counts
     return total / jnp.float32(cfg.spp), segs
 
 
-def _padded_pixel_blocks(cfg: RenderConfig):
-    """Static (nb, block) pixel-index grid covering the padded image."""
+# Elements of one (pixels x primitives) brute-force matrix in a block. The
+# bounce step keeps up to ~5 such f32 matrices live at once (Chess, 6k
+# triangles: 42 GB of temporaries at 2^31 elements per matrix on an H100),
+# so 2^30 holds a block's working set near 20 GB.
+BRUTE_FORCE_ELEMENTS = 1 << 30
+
+# Block size when RenderConfig.block_size is None. Each block's bounce loop
+# runs until its slowest path ends, so deep scenes want small blocks that
+# exit early, and shallow ones want few large blocks (fewer launches). On an
+# H100, whole-frame blocks against 32,768 pixels: RTIOW 1080p depth 4
+# 987 vs 1215 ms (700 W card); Cornell 512^2 depth 8 53 vs 62 ms, the 70k
+# mesh depth 4 507 vs 812 ms, Chess 720p depth 15 7389 vs 4904 ms, Balls
+# Outdoors 720p depth 30 4554 vs 2488 ms (400 W card). The cut-off lies
+# somewhere between depth 8 and 15: no depth from 9 to 14 was measured, and
+# the two readings came from cards of different power limits. Placing it is
+# for a benchmark cell at an intermediate depth.
+SHALLOW_MAX_BOUNCE = 8
+DEEP_BLOCK = 32768
+
+
+def _brute_force_width(scene: Scene, cfg: RenderConfig) -> int:
+    """Primitives every ray tests by brute force: the width of the (pixels
+    x primitives) matrices. Primitives under a BVH the intersector
+    traverses do not count."""
+    bvh = _resolve_intersector(scene, cfg) is not None
+    width = 0
+    if not (bvh and scene.sphere_bvh is not None):
+        width += scene.spheres.count
+    if not (bvh and scene.tri_bvh is not None):
+        width += scene.triangles.count
+    return max(width, 1)
+
+
+def _padded_pixel_blocks(cfg: RenderConfig, width: int = 1, n_shards: int = 1):
+    """Static (nb, block) pixel-index grid covering the image in equal
+    blocks, with ``nb`` a multiple of ``n_shards`` (the mesh's 'tiles'
+    axis) and fewer than ``nb`` padding indices (>= the pixel count). No
+    block exceeds ``cfg.block_size`` (default: by bounce depth, see
+    SHALLOW_MAX_BOUNCE) nor the brute-force memory bound for ``width``
+    primitives."""
     import numpy as np
 
     n = cfg.num_pixels
-    block = min(cfg.block_size, _round_up(n, 256))
-    n_pad = _round_up(n, block)
-    idx = np.arange(n_pad, dtype=np.int32)
-    # Clamp padding lanes to the last real pixel: valid geometry, discarded.
-    idx = np.minimum(idx, n - 1)
-    return idx.reshape(n_pad // block, block)
+    cap = cfg.block_size
+    if cap is None:
+        cap = n if cfg.max_bounce <= SHALLOW_MAX_BOUNCE else DEEP_BLOCK
+    cap = max(1, min(cap, BRUTE_FORCE_ELEMENTS // width))
+    nb = _round_up(-(-n // cap), n_shards)
+    block = -(-n // nb)
+    return np.arange(nb * block, dtype=np.int32).reshape(nb, block)
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
-
-
-def _use_megakernel(
-    scene: Scene,
-    cfg: RenderConfig,
-    batched: bool = False,
-    paired: bool = False,
-) -> bool:
-    """The fused Pallas megakernel handles whole frames on TPU for scenes
-    whose packed tables fit VMEM (one-hot fetch for small scenes, the
-    winner post-pass for big ones); other intersector choices use the XLA
-    bounce loop. A scene carrying a BVH still prefers the megakernel when
-    supported - the BVH remains the XLA fallback. ``batched``/``paired``
-    describe a render_frames_mega launch, whose tile size and per-tile
-    input blocks differ from the single-frame launch (ADVICE round 3)."""
-    if cfg.intersector == "mega":
-        return True
-    if cfg.intersector != "auto":
-        return False
-    try:
-        import jax as _jax
-
-        if _jax.devices()[0].platform != "tpu":
-            return False
-    except Exception:
-        return False
-    from .kernels.megakernel import mega_supported
-
-    return mega_supported(scene, cfg, batched=batched, paired=paired)
 
 
 @functools.partial(
@@ -169,25 +180,9 @@ def render_frame_with_stats(
     int32 live-path counts per bounce index (normalise by counts[0] for the
     alive fraction - SURVEY.md section 5 observability).
     """
-    if _use_megakernel(scene, cfg):
-        from .kernels.megakernel import render_frame_mega
-
-        # off-TPU (CPU tests, a user forcing intersector="mega") the
-        # Mosaic pipeline is unavailable; interpret mode keeps the same
-        # semantics at reduced speed
-        interpret = jax.devices()[0].platform != "tpu"
-        out = render_frame_mega(
-            scene, camera, cfg, frame, interpret=interpret,
-            collect_stats=bounce_stats,
-        )
-        if bounce_stats:
-            # megakernel hist rows beyond the bounce histogram carry cull
-            # diagnostics (kernels/megakernel.py count_visits)
-            img, segs, counts = out
-            return img, segs, counts[: cfg.max_bounce + 1]
-        return out
-
-    blocks = jnp.asarray(_padded_pixel_blocks(cfg))
+    blocks = jnp.asarray(
+        _padded_pixel_blocks(cfg, _brute_force_width(scene, cfg))
+    )
     intersect_fn = _resolve_intersector(scene, cfg)
 
     def run(block_idx):
@@ -225,9 +220,7 @@ def render_frame(scene: Scene, camera: Camera, cfg: RenderConfig, frame):
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=("cfg", "n_frames", "segs_map"),
-    donate_argnums=(3,),
+    jax.jit, static_argnames=("cfg", "n_frames"), donate_argnums=(3,)
 )
 def render_frames_and_accumulate(
     scene: Scene,
@@ -236,55 +229,24 @@ def render_frames_and_accumulate(
     accum,
     frame0,
     n_frames: int = 1,
-    pair_costs=None,
-    segs_map: bool = False,
 ):
     """``n_frames`` progressive steps fused into one dispatch -> (accum',
-    total ray segments uint32) (+ an (H, W) int32 per-pixel segment map
-    when ``segs_map``).
+    total ray segments uint32).
 
-    On the megakernel path this is ONE kernel launch: frames are
-    independently seeded (pix + frame*719393), so a lane that finishes a
-    frame's spp quota immediately starts the next frame's samples instead
-    of idling for the tile's slowest lane - the parity-mode occupancy
-    fix (kernels/megakernel.py render_frames_mega). Sample-for-sample
-    identical to the sequential render_and_accumulate loop (fold within
-    1 ulp/step of compiler contraction noise). The XLA path folds
-    sequentially with the same weights.
+    Frames ``frame0 .. frame0 + n_frames - 1`` are rendered and folded in
+    order with the reference weighting, exactly like ``n_frames`` calls of
+    ``render_and_accumulate``. The frames are a ``lax.fori_loop``, so the
+    program holds one bounce loop whatever ``n_frames`` is."""
+    frame0 = jnp.asarray(frame0, jnp.uint32)
 
-    ``pair_costs``: optional (H, W) cost map (a previous call's
-    ``segs_map`` output) enabling cost-guided lane pairing on the
-    megakernel path - bit-identical output, higher occupancy (see
-    render_frames_mega). Chain it across calls:
-    ``acc, segs, cmap = render_frames_and_accumulate(..., pair_costs=cmap,
-    segs_map=True)``. Ignored on the XLA fallback path, whose segment
-    map (per-pixel cost telemetry) is also not available - it returns a
-    zeros map, which a later megakernel launch treats as an identity
-    pairing."""
-    if _use_megakernel(
-        scene, cfg, batched=n_frames > 1, paired=pair_costs is not None
-    ):
-        from .kernels.megakernel import render_frames_mega
+    def body(k, carry):
+        accum, total = carry
+        f = frame0 + k.astype(jnp.uint32)
+        cur, segs = render_frame_with_stats(scene, camera, cfg, f)
+        accum = accumulate(accum, cur, f, clamp=cfg.clamp_accumulate)
+        return accum, total + segs
 
-        interpret = jax.devices()[0].platform != "tpu"
-        return render_frames_mega(
-            scene, camera, cfg, frame0, accum, n_frames,
-            interpret=interpret, segs_map=segs_map, pair_costs=pair_costs,
-        )
-    total = jnp.uint32(0)
-    for k in range(n_frames):
-        cur, segs = render_frame_with_stats(
-            scene, camera, cfg, frame0 + jnp.uint32(k)
-        )
-        accum = accumulate(
-            accum, cur, frame0 + jnp.uint32(k), clamp=cfg.clamp_accumulate
-        )
-        total = total + segs
-    if segs_map:
-        return accum, total, jnp.zeros(
-            (cfg.height, cfg.width), jnp.int32
-        )
-    return accum, total
+    return lax.fori_loop(0, n_frames, body, (accum, jnp.uint32(0)))
 
 
 @functools.partial(jax.jit, static_argnames=("cfg",), donate_argnums=(3,))

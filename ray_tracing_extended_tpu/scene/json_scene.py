@@ -57,6 +57,9 @@ from ..ops.camera import look_at
 from ..utils.config import RenderConfig
 
 _FLAGS = {"none": 0, "checker": 1, "invisiblelight": 2, "dielectric": 3}
+# Settings keys of removed features: a scene that sets one is refused
+# rather than rendered without it.
+_REMOVED_SETTINGS = {"adaptiveSpp", "fastScatter"}
 
 
 def _material(d: dict) -> Material:
@@ -176,6 +179,13 @@ def load_json_scene(path, overrides: dict | None = None):
     )
 
     settings = spec.get("settings") or {}
+    removed = sorted(_REMOVED_SETTINGS & set(settings))
+    if removed:
+        raise ValueError(
+            f"{path}: settings {removed} are no longer supported (they "
+            "selected sampler variants that have been removed); delete "
+            "them from the scene file"
+        )
     camd = spec.get("camera") or {}
     if "rotation" in camd:
         from ..ops.camera import camera_from_matrix
@@ -203,8 +213,6 @@ def load_json_scene(path, overrides: dict | None = None):
         spp=int(settings.get("numRaysPerPixel", 2)),
         width=int(settings.get("width", 1280)),
         height=int(settings.get("height", 720)),
-        adaptive_spp=bool(settings.get("adaptiveSpp", False)),
-        fast_scatter=bool(settings.get("fastScatter", False)),
     )
     if overrides:
         import dataclasses

@@ -29,7 +29,6 @@ import re
 from pathlib import Path
 
 import numpy as np
-import yaml
 
 from ..models.geometry import Environment
 from ..models.scene import Material, SceneBuilder
@@ -45,6 +44,14 @@ _DOC_RE = re.compile(r"^--- !u!(\d+) &(\d+)( stripped)?\s*$", re.M)
 
 def _parse_unity_yaml(text: str):
     """-> {fileID: (class_id, body_dict)}"""
+    try:
+        import yaml
+    except ImportError as e:
+        raise ImportError(
+            "loading .unity scenes needs PyYAML (the package's 'unity' "
+            "extra); the JSON scene mirrors in scenes/ load without it"
+        ) from e
+
     docs = {}
     matches = list(_DOC_RE.finditer(text))
     for i, m in enumerate(matches):
@@ -518,12 +525,10 @@ def load_unity_scene(path, overrides: dict | None = None):
     for tp, tn, mat in spec["tri_groups"]:
         b.add_triangles(tp, tn, mat)
 
-    # Acceleration story (reference: every chunk is AABB-gated,
-    # RayTracing.shader:279-281): the packed sub/super-cluster tables feed
-    # the megakernel's hierarchical cull for every imported scene; scenes
-    # whose tables exceed the megakernel's VMEM budget additionally get an
-    # LBVH so the XLA fallback is a log-depth traversal, never the full
-    # pairwise scan.
+    # Acceleration (the reference AABB-gates every chunk,
+    # RayTracing.shader:279-281): scenes past 16,384 triangles get an LBVH,
+    # a log-depth traversal in place of the full pairwise scan; smaller
+    # ones stay brute force.
     scene = b.build(build_bvh="tri" if b.num_triangles > 16384 else None)
 
     cam = (

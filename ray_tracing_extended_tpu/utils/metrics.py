@@ -1,7 +1,7 @@
 """Per-frame render metrics: structured JSONL observability.
 
 The reference exposes only three inspector counters (numRenderedFrames /
-numMeshChunks / numTriangles, RayTracingManager.cs:26-28). The TPU framework
+numMeshChunks / numTriangles, RayTracingManager.cs:26-28). This framework
 emits one JSON object per frame with throughput and convergence stats
 (SURVEY.md section 5 'Metrics / logging'): Mrays/s (live segments / wall),
 spp/s, rays per path, plus - via the ``extra`` dict filled by

@@ -19,8 +19,7 @@ import jax
 def trace(logdir: str):
     """Profile a region: ``with profiling.trace('/tmp/xplane'): render()``.
 
-    View with xprof / tensorboard. (On interactive TPU tunnels the device
-    trace may be host-only; wall-clock spans still record.)
+    View with xprof / tensorboard.
     """
     jax.profiler.start_trace(logdir)
     try:
@@ -33,11 +32,9 @@ def trace(logdir: str):
 def debug_mode(nans: bool = True, disable_jit: bool = False):
     """NaN sanitizer + optional op-by-op execution for kernel debugging.
 
-    Use with the XLA path (intersector='bruteforce'/'bvh') - it is the
-    bit-exact semantic reference and what debugging should target. The
-    megakernel deliberately produces transient NaNs (sqrt of a negative
-    sphere discriminant encodes 'no root'; IEEE comparison discards
-    them), so the NaN check false-positives on its interpret mode."""
+    The bounce loop is NaN-free by construction (dead lanes keep a
+    tiny-clamped roulette denominator, ops/trace.py), so any NaN this
+    reports is a real defect."""
     ctxs = []
     if nans:
         ctxs.append(jax.debug_nans(True))
@@ -47,6 +44,21 @@ def debug_mode(nans: bool = True, disable_jit: bool = False):
         for c in ctxs:
             stack.enter_context(c)
         yield
+
+
+def program_bytes(jitted, *args, **kwargs) -> int | None:
+    """Device bytes one call of ``jitted`` with these arguments holds:
+    arguments, outputs and temporaries of its compiled program (donated
+    buffers counted once), from XLA's memory analysis. Unlike the process's
+    ``peak_bytes_in_use`` it belongs to this program alone. None where the
+    backend does not report it."""
+    m = jitted.lower(*args, **kwargs).compile().memory_analysis()
+    if m is None:
+        return None
+    return int(
+        m.argument_size_in_bytes + m.output_size_in_bytes
+        + m.temp_size_in_bytes - m.alias_size_in_bytes
+    )
 
 
 def annotate(name: str):

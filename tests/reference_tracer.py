@@ -1,6 +1,6 @@
 """Scalar NumPy reference path tracer: a direct, independent transcription of
 the reference shader's semantics (RayTracing.shader frag/Trace/intersectors
-and Accumulate.shader), used as the parity oracle for the TPU framework.
+and Accumulate.shader), used as the parity oracle for the JAX renderer.
 
 Deliberately written in the most literal scalar style (per-pixel Python
 loops, f32 everywhere, uint32 integer RNG) so it is easy to audit against the

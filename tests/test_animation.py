@@ -148,7 +148,7 @@ def _rotation_z(deg):
 def test_chunk_topology_is_pose_invariant(tmp_path):
     """Chunking runs once in LOCAL space (MeshSplitter semantics), so a
     rotation/scale between builds must keep chunk count and triangle
-    membership - and therefore every packed pytree shape - identical
+    membership - and therefore every scene pytree shape - identical
     (ADVICE round 4: world-space re-chunking redistributed triangles
     across octants per pose, breaking render_progressive(scenes=...)
     for rotating chunked meshes)."""

@@ -1,31 +1,35 @@
-"""Randomized megakernel-vs-XLA parity: seeded random scenes sweep the
-packing edge cases (cluster counts straddling SUB boundaries, oversized-
-sphere hoisting, mixed sphere/triangle slots, emissive/specular spreads)
-that hand-written presets cannot cover. The XLA bounce loop is the
-semantic reference; the megakernel must agree except for its documented
-<=1-ulp RandomValue rounding (rare knife-edge path divergence)."""
+"""Randomized brute-force-vs-BVH parity: seeded random scenes (sphere
+counts, a huge ground sphere whose box contains every other primitive,
+mixed sphere/triangle scenes, emissive/specular spreads, material flags)
+that hand-written presets cannot cover. Brute force is the semantic
+reference; the BVH traversal must agree except where its different
+evaluation order rounds a knife-edge path the other way. The material-flag
+scene is also held to the scalar oracle (tests/reference_tracer.py)."""
+
+import dataclasses
 
 import numpy as np
 import jax.numpy as jnp
 
-from ray_tracing_extended_tpu.kernels.megakernel import render_frame_mega
 from ray_tracing_extended_tpu.models.scene import Material, SceneBuilder
 from ray_tracing_extended_tpu.ops.camera import look_at
-from ray_tracing_extended_tpu.render import render_frame
+from ray_tracing_extended_tpu.render import render_frame_with_stats
 from ray_tracing_extended_tpu.utils.config import RenderConfig
 
 
 def _random_scene(seed: int, with_ground: bool, with_tris: bool,
-                  with_flags: bool = False):
+                  with_flags: bool = False, dielectric: bool = True):
     rng = np.random.default_rng(seed)
     b = SceneBuilder()
-    n = int(rng.integers(30, 70))  # straddles 1-3 SUB clusters
+    n = int(rng.integers(30, 70))
     for _ in range(n):
         pos = rng.uniform([-6, 0.2, -6], [6, 2.5, 6])
         # with_flags sprinkles the material FLAG paths (checker /
-        # invisible-light / dielectric) so their feature-compiled kernel
-        # branches get fuzzed, not just the preset coverage
+        # invisible-light / dielectric) so their shading branches get
+        # fuzzed, not just the preset coverage
         flag = int(rng.choice([0, 0, 1, 2, 3])) if with_flags else 0
+        if flag == 3 and not dielectric:  # same draws, oracle-known flag
+            flag = 0
         mat = Material(
             colour=tuple(rng.uniform(0.05, 1.0, 3)),
             emission_colour=tuple(rng.uniform(0, 1, 3)),
@@ -38,7 +42,7 @@ def _random_scene(seed: int, with_ground: bool, with_tris: bool,
         )
         b.add_sphere(tuple(pos), float(rng.uniform(0.1, 0.6)), mat)
     if with_ground:
-        # dwarfs the rest -> exercises the hoist path
+        # dwarfs the rest -> one huge BVH leaf box over every node
         b.add_sphere((0.0, -500.0, 0.0), 500.0,
                      Material.lambertian((0.5, 0.5, 0.5)))
     if with_tris:
@@ -54,121 +58,79 @@ def _random_scene(seed: int, with_ground: bool, with_tris: bool,
         normals = np.repeat(n[:, None, :], 3, axis=1)
         b.add_triangles(pos, normals, Material.lambertian(
             tuple(rng.uniform(0.2, 1.0, 3))))
-    scene = b.build()
+    scene = b.build(build_bvh="both")
     cam = look_at((0, 2.5, -10), (0, 1, 0), fov_y_deg=45)
     cfg = RenderConfig(width=48, height=32, max_bounce=3, spp=1,
                        clamp_accumulate=False)
     return scene, cam, cfg
 
 
-def _check(seed, with_ground, with_tris, prebuilt=None,
-           with_flags=False):
-    scene, cam, cfg = prebuilt or _random_scene(
-        seed, with_ground, with_tris, with_flags
-    )
-    a = np.asarray(render_frame(scene, cam, cfg, jnp.uint32(seed)))
-    m, segs = render_frame_mega(scene, cam, cfg, jnp.uint32(seed),
-                                interpret=True)
-    m = np.asarray(m)
-    assert not np.isnan(m).any()
-    assert int(segs) > 0
-    d = np.abs(a - m).max(axis=-1)
+def _render(scene, cam, cfg, intersector, frame):
+    c = dataclasses.replace(cfg, intersector=intersector)
+    img, segs = render_frame_with_stats(scene, cam, c, jnp.uint32(frame))
+    return np.asarray(img), int(segs)
+
+
+def _check(seed, with_ground, with_tris, with_flags=False):
+    scene, cam, cfg = _random_scene(seed, with_ground, with_tris, with_flags)
+    assert scene.sphere_bvh is not None
+    assert (scene.tri_bvh is not None) == with_tris
+    a, segs_a = _render(scene, cam, cfg, "bruteforce", seed)
+    b, segs_b = _render(scene, cam, cfg, "bvh", seed)
+    assert not np.isnan(b).any()
+    assert segs_a > 0 and segs_b > 0
+    d = np.abs(a - b).max(axis=-1)
     frac = (d < 1e-3).mean()
     assert frac > 0.99, f"seed {seed}: only {frac:.3f} pixels tight"
-    assert np.abs(a - m).mean() < 2e-3
+    assert np.abs(a - b).mean() < 2e-3
+    return scene, cam, cfg, a
 
 
 def test_fuzz_spheres_with_hoisted_ground():
-    built = _random_scene(7, True, False)
-    assert built[0].packed.n_hoist == 1  # the criterion must fire
-    _check(7, True, False, prebuilt=built)
+    _check(7, True, False)
 
 
 def test_fuzz_mixed_spheres_tris():
     _check(11, False, True)
 
 
-def test_fuzz_winner_mode_hoist_tris(monkeypatch):
-    """The full combination: winner post-pass fetch (forced via the slot
-    threshold) x hoisted oversized sphere x mixed sphere/tri slots."""
-    from ray_tracing_extended_tpu.kernels import pack as pack_mod
-
-    monkeypatch.setattr(pack_mod, "ONEHOT_MAX_SLOTS", 0)
-    built = _random_scene(23, True, True)
-    assert built[0].packed.fetch_mode == "winner"
-    assert built[0].packed.n_hoist == 1
-    _check(23, True, True, prebuilt=built)
-
-
 def test_fuzz_material_flags():
-    """Checker / invisible-light / dielectric flags randomly mixed: the
-    feature-specialized kernel branches must agree with the XLA path."""
-    built = _random_scene(31, False, False, with_flags=True)
-    feats = set(built[0].packed.features)
-    assert {"checker", "invisible", "dielectric"} <= feats
-    _check(31, False, False, prebuilt=built)
+    """Checker / invisible-light / dielectric flags randomly mixed: BVH
+    and brute force agree; and with the dielectrics (an extension the
+    oracle lacks) made plain, brute force matches the scalar oracle by
+    the parity test's criteria."""
+    import reference_tracer as ref
+    from test_render_parity import _assert_parity
 
+    scene, _, _, _ = _check(31, False, False, with_flags=True)
+    assert {1, 2, 3} <= set(np.asarray(scene.materials.flag).tolist())
 
-def test_fuzz_perlane_modes_match_default(monkeypatch):
-    """Random mixed scenes under RTX_MEGA_PERLANE 1 and 2: the per-lane
-    cull drains must reproduce the default per-tile-union path on scenes
-    that sweep the packing edge cases (cluster counts, hoisted ground,
-    mixed sphere/tri slots) - near-bit-identity, since per-row pops only
-    visit supersets and the encoded min-fold is idempotent."""
-    import os
-
-    for seed in (31, 37):
-        built = _random_scene(seed, seed == 31, True)
-        scene = built[0]
-        p = scene.packed
-        # the path must actually engage for the fuzz to mean anything
-        assert p.n_sphere_subs_visit >= 2 or p.n_tri_subs >= 2, seed
-        monkeypatch.setitem(os.environ, "RTX_MEGA_PERLANE", "0")
-        a, _ = render_frame_mega(built[0], built[1], built[2],
-                                 jnp.uint32(seed), interpret=True)
-        a = np.asarray(a)
-        for mode in ("1", "2"):
-            monkeypatch.setitem(os.environ, "RTX_MEGA_PERLANE", mode)
-            b, segs = render_frame_mega(built[0], built[1], built[2],
-                                        jnp.uint32(seed), interpret=True)
-            b = np.asarray(b)
-            assert int(segs) > 0
-            d = np.abs(a - b).max(axis=-1)
-            assert (d == 0).mean() > 0.995, (
-                f"seed {seed} mode {mode}: {(d > 0).mean():.4f} differ"
-            )
-
-
-def test_fuzz_perlane_two_word_bits(monkeypatch):
-    """> 24 sub-clusters exercise the two-accumulator bit build (ranks
-    >= 24 ride a second f32 word combined at the SMEM extract)."""
-    import os
-
-    rng = np.random.default_rng(41)
-    b = SceneBuilder()
-    for _ in range(820):
-        pos = rng.uniform([-8, 0.2, -8], [8, 3.0, 8])
-        b.add_sphere(tuple(pos), float(rng.uniform(0.05, 0.25)),
-                     Material.lambertian(tuple(rng.uniform(0.2, 1.0, 3))))
-    scene = b.build()
-    p = scene.packed
-    assert p.n_sphere_supers <= 1 and 25 <= p.n_sphere_subs_visit <= 31, (
-        p.n_sphere_subs_visit
-    )
-    cam = look_at((0, 3.0, -14), (0, 1, 0), fov_y_deg=45)
-    cfg = RenderConfig(width=48, height=32, max_bounce=2, spp=1,
-                       clamp_accumulate=False)
-    monkeypatch.setitem(os.environ, "RTX_MEGA_PERLANE", "0")
-    a, _ = render_frame_mega(scene, cam, cfg, jnp.uint32(5),
-                             interpret=True)
-    a = np.asarray(a)
-    for mode in ("1", "2"):
-        monkeypatch.setitem(os.environ, "RTX_MEGA_PERLANE", mode)
-        m, segs = render_frame_mega(scene, cam, cfg, jnp.uint32(5),
-                                    interpret=True)
-        m = np.asarray(m)
-        assert int(segs) > 0
-        d = np.abs(a - m).max(axis=-1)
-        assert (d == 0).mean() > 0.995, (
-            f"mode {mode}: {(d > 0).mean():.4f} differ"
+    scene, cam, cfg = _random_scene(31, False, False, True, dielectric=False)
+    img, _ = _render(scene, cam, cfg, "bruteforce", 31)
+    m = {k: np.asarray(v) for k, v in scene.materials.__dict__.items()}
+    live = np.asarray(scene.spheres.radius) > 0
+    spheres = [
+        ref.Sph(
+            np.asarray(scene.spheres.center)[i],
+            np.float32(np.asarray(scene.spheres.radius)[i]),
+            ref.Mat(
+                colour=m["colour"][j],
+                emission_colour=m["emission_colour"][j],
+                specular_colour=m["specular_colour"][j],
+                emission_strength=m["emission_strength"][j],
+                smoothness=m["smoothness"][j],
+                specular_probability=m["specular_probability"][j],
+                flag=int(m["flag"][j]),
+            ),
         )
+        for i, j in enumerate(np.asarray(scene.spheres.mat_idx))
+        if live[i]
+    ]
+    img_ref = ref.render(
+        spheres, [], ref.Env(enabled=False), np.asarray(cam.position),
+        np.asarray(cam.rotation), float(cam.fov_y_deg),
+        np.float32(cam.focus_distance), float(cam.defocus_strength),
+        float(cam.diverge_strength), cfg.width, cfg.height, cfg.max_bounce,
+        cfg.spp, 31,
+    )
+    _assert_parity(img, img_ref)

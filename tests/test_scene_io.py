@@ -36,26 +36,6 @@ def test_unity_import_all_six_scenes():
             assert bool(scene.env.enabled > 0) == want["env"], name
 
 
-def test_chess_picks_culled_fast_path():
-    """Chess (5,912 tris, the reference's heaviest mesh scene) must land on
-    a culled intersector, never the full pairwise scan: its packed tables
-    fit the megakernel's VMEM budget (hierarchical super/sub-cluster cull),
-    so mega_supported must accept it (VERDICT round-1 missing item 2)."""
-    import os
-
-    from ray_tracing_extended_tpu.kernels.megakernel import mega_supported
-    from ray_tracing_extended_tpu.scene.unity import load_unity_scene
-
-    path = os.path.join(REF, "Scenes", "Chess.unity")
-    if not os.path.exists(path):
-        pytest.skip("reference scenes unavailable")
-    scene, cam, cfg = load_unity_scene(path)
-    assert scene.packed is not None
-    assert scene.packed.fetch_tab.shape[1] > 4096  # beyond the old cap
-    assert mega_supported(scene, cfg)
-    assert scene.packed.n_tri_supers > 1  # hierarchical cull engaged
-
-
 def test_unity_prefab_mesh_transform_resolved():
     """The Knight is an FBX prefab instance (stripped transform); its
     triangles must land at world scale, not the 0.03-unit mesh-local size."""

@@ -1,7 +1,9 @@
 """Environment light, checker flag, scatter distribution, accumulate."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
+import pytest
 
 import reference_tracer as ref
 from ray_tracing_extended_tpu.models.geometry import (
@@ -177,3 +179,22 @@ def test_accumulate_running_average_and_clamp():
     for i, f in enumerate(frames):
         acc = accumulate(acc, jnp.asarray(f), i, clamp=False)
     assert np.allclose(np.asarray(acc), np.mean(frames, axis=0), atol=1e-5)
+
+
+@pytest.mark.parametrize("clamp", [False, True])
+def test_accumulate_same_bits_fused_with_its_producer(clamp):
+    """The fold inside a compiled program, fused with the op that made the
+    frame, gives the bits of the eager fold: no product feeds an add, so no
+    FMA contraction can move the last bit."""
+    rs = np.random.RandomState(1)
+    prev = jnp.asarray(rs.uniform(0, 2, (64, 64, 3)).astype(np.float32))
+    total = jnp.asarray(rs.uniform(0, 6, (64, 64, 3)).astype(np.float32))
+    fused = jax.jit(
+        lambda p, t, f: accumulate(p, t / jnp.float32(3.0), f, clamp=clamp)
+    )
+    for f in range(6):
+        cur = jax.jit(lambda t: t / jnp.float32(3.0))(total)
+        eager = accumulate(prev, cur, f, clamp=clamp)
+        np.testing.assert_array_equal(
+            np.asarray(fused(prev, total, jnp.uint32(f))), np.asarray(eager)
+        )
